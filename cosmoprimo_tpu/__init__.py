@@ -1,12 +1,12 @@
-"""cosmoprimo_tpu — a TPU-native (JAX/XLA/Pallas) primordial-cosmology framework.
+"""cosmoprimo_tpu — a JAX/XLA primordial-cosmology framework.
 
-Re-designed from scratch for TPU execution with the capabilities of the
+Re-designed from scratch for accelerator execution with the capabilities of the
 cosmoprimo reference library: a :class:`Cosmology` parameter front-end with
 pluggable engines exposing uniform physics sections (Background,
 Thermodynamics, Primordial, Transfer, Harmonic, Fourier), FFTLog transforms,
 power-spectrum interpolators, BAO filters, fiducial cosmologies and an
 emulator toolkit. Everything is traced JAX: jit/vmap/jacfwd work end-to-end,
-and batched evaluation over many cosmologies maps onto the TPU natively.
+and batched evaluation over many cosmologies maps onto the accelerator natively.
 """
 
 # Imported as _jax: the plain name would shadow the lazy `cosmoprimo_tpu.jax`

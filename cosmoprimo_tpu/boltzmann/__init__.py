@@ -1,4 +1,4 @@
-"""Native TPU Boltzmann machinery: recombination thermodynamics and linear
+"""Native Boltzmann machinery: recombination thermodynamics and linear
 perturbations, fully traced JAX (jit/vmap/jacfwd-clean).
 
 The reference (cosmodesi/cosmoprimo) obtains every quantity in this

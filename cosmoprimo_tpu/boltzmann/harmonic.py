@@ -20,12 +20,12 @@ sections import integrated Cls from external CLASS/CAMB builds
 CLASS v3.1.1 Cl tables archived by the reference's own test suite
 (tests/fiducial/abacus_cosm000_CLASSv3.1.1.00_cl.dat).
 
-TPU-first structure: no data-dependent shapes anywhere. The tau quadrature
+Static structure: no data-dependent shapes anywhere. The tau quadrature
 and k grids are static templates whose VALUES adapt to the cosmology; the
 Bessel tables are cosmology-independent (n_ell, n_x) arrays evaluated by
 uniform-grid cubic-Hermite gathers; the per-multipole projection is a
 `lax.map` whose body is two large (n_k, n_tau) elementwise blocks and a
-matvec - MXU/VPU-friendly with k on the trailing lane axis.
+matvec, with k on the trailing axis.
 """
 
 import jax

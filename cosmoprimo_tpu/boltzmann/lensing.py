@@ -24,7 +24,7 @@ The reference cannot lens anything itself: it reads lensed Cls from
 CLASS/CAMB (cosmoprimo/classy.py:278-301 lensed_table). Validation anchor:
 tests/fiducial/abacus_cosm000_CLASSv3.1.1.00_cl_lensed.dat.
 
-TPU-first: the l-sums and r-integrals are (n_r, n_l)-shaped elementwise
+Static shapes: the l-sums and r-integrals are (n_r, n_l)-shaped elementwise
 blocks + matvecs; J_m values come from one uniform-grid cubic-Hermite table
 gather shared by all kernels; everything is static-shaped and jit/vmap-safe.
 """

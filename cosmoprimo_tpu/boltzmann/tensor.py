@@ -5,7 +5,7 @@ contributions to TT/EE/TE.
 The reference serves tensor Cls only through an external CLASS build
 (/root/reference/cosmoprimo/classy.py with modes=['s','t'],
 cosmology.py:730-734 carries r/n_t/alpha_t); this module computes them
-natively on the same TPU-first scaffolding as the scalar solver.
+natively on the same static-shape scaffolding as the scalar solver.
 
 Physics (Crittenden-Coulson-Turok / Polnarev reduced system; all photon
 moments in TEMPERATURE units):

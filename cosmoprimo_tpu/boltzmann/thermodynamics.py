@@ -10,7 +10,7 @@ cascades and the Compton-coupled matter temperature, on a uniform ln(a)
 grid with a Crank-Nicolson/Newton step - everything jnp, so the whole
 history jits, vmaps over cosmology batches, and differentiates.
 
-TPU-first design notes:
+Design notes:
 - one fixed-size `lax.scan` over the ln(a) grid carries (x_H, T_m); all
   regime changes (Saha -> ODE handoff, Compton tight-coupling attractor)
   are `jnp.where` blends, so the graph is static for any cosmology;
@@ -36,10 +36,8 @@ import numpy as np
 from .. import constants
 from ..ops.roots import bisect
 
-# lax.scan unroll factor for the recombination history. Measured on the
-# v5e (scripts/dev_native_perf.py): the 6144-step scan runs at ~25us/step
-# (157 ms at batch 8) and unroll=16 REGRESSED it to 206 ms - XLA's loop
-# overhead is already negligible - so the default stays 1.
+# lax.scan unroll factor for the recombination history (env knob kept for
+# studies; not yet measured on the GPU).
 UNROLL = int(os.environ.get('NATIVE_UNROLL_THERMO', '1'))
 
 # ---- SI atomic constants (CODATA 2018 / RECFAST values)

@@ -1,6 +1,6 @@
 """Cosmological parameter system and engine front-end, JAX-native.
 
-Re-designed from the reference's cosmology.py (2093 LoC) for TPU execution:
+Re-designed from the reference's cosmology.py (2093 LoC) for accelerator execution:
 
 - a :class:`Cosmology` is a pytree of numeric parameters (children) plus
   static configuration (aux data), so whole cosmologies flow through
@@ -1077,6 +1077,20 @@ class BaseSection(object):
 
 def register_section(cls):
     return jax.tree_util.register_pytree_node_class(cls)
+
+
+class cl_table(dict):
+    """Dict-of-arrays Cl container mimicking a structured array
+    (reference's fake_nparray; keys 'ell', 'tt', 'ee', ...)."""
+
+    def __getitem__(self, name):
+        if isinstance(name, str):
+            return super().__getitem__(name)
+        return self.__class__({key: self[key][name] for key in self})
+
+    @property
+    def size(self):
+        return next((value.size for value in self.values()), 0)
 
 
 @register_section

@@ -16,7 +16,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from .. import utils
-from ..cosmology import (BaseBackground, BaseEngine, BaseSection, CosmologyError, find_conflicts,
+from ..cosmology import (BaseBackground, BaseEngine, BaseSection, CosmologyError, cl_table, find_conflicts,
                          register_engine, register_section)
 from ..interpolator import PowerSpectrumInterpolator1D, PowerSpectrumInterpolator2D
 from ..ops import Interpolator1D, flatarray
@@ -316,20 +316,6 @@ class Primordial(BaseSection):
 
     def __setstate__(self, state):
         self._state = dict(state)
-
-
-class cl_table(dict):
-    """Dict-of-arrays Cl container mimicking a structured array
-    (reference's fake_nparray; keys 'ell', 'tt', 'ee', ...)."""
-
-    def __getitem__(self, name):
-        if isinstance(name, str):
-            return super().__getitem__(name)
-        return self.__class__({key: self[key][name] for key in self})
-
-    @property
-    def size(self):
-        return next((value.size for value in self.values()), 0)
 
 
 @register_section

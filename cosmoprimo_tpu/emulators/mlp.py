@@ -5,7 +5,7 @@ The network reproduces the reference's architecture space
 or the cosmopower-style 'identity-silu' activation with learnable
 (alpha, beta) per layer.
 
-TPU-first training design: one jitted train step over a
+Training design: one jitted train step over a
 ``jax.sharding.Mesh`` — the sample batch is sharded over the 'dp' axis and
 the hidden activations/weights over 'tp' (column-parallel first layer,
 row-parallel output contraction); XLA inserts the psum/all-gather

@@ -28,12 +28,12 @@ def main(argv=None):
     parser.add_argument('--samples', default=None, help='precomputed samples file (skip sampling)')
     parser.add_argument('--save-samples', default=None)
     parser.add_argument('--nparams', type=int, default=5, help='number of varied parameters (prefix of the box)')
-    parser.add_argument('--tpu', action='store_true', help='run sampling on the accelerator (default: CPU; '
+    parser.add_argument('--accelerator', action='store_true', help='run sampling on the accelerator (default: CPU; '
                         'per-point eager evaluation is host-bound)')
     args = parser.parse_args(argv)
 
     import jax
-    if not args.tpu:
+    if not args.accelerator:
         jax.config.update('jax_platforms', 'cpu')
     jax.config.update('jax_enable_x64', True)
 

@@ -1,6 +1,6 @@
 """Training driver for Boltzmann-engine emulators.
 
-TPU-native counterpart of the reference's per-engine drivers
+Counterpart of the reference's per-engine drivers
 (emulators/train/train_classy.py, train_camb.py, train_axiclassy.py): one
 generic CLI covering sample -> fit -> plot for any registered engine, with
 the reference's named parameter-space configs and the theta_MC_100
@@ -11,7 +11,7 @@ Differences from the reference, by design:
 - one script parameterized by ``--engine`` instead of a copy per engine;
 - sampling runs on CPU by default (per-point eager Boltzmann calls are
   host-bound); the MLP fit is jit-compiled and runs on the default backend
-  (TPU when available), with optional dp x tp sharding via --mesh;
+  (the accelerator when available), with optional dp x tp sharding via --mesh;
 - checkpointed sampling: interrupted runs resume with --resume.
 
 Usage (with pyclass/camb installed; any analytic engine works for smoke
@@ -307,14 +307,13 @@ def main(argv=None):
     parser.add_argument('--samples-fn', default=None)
     parser.add_argument('--emulator-fn', default=None)
     parser.add_argument('--outdir', default='_train')
-    parser.add_argument('--tpu', action='store_true', help='run sampling on the accelerator '
+    parser.add_argument('--accelerator', action='store_true', help='run sampling on the accelerator '
                         '(default CPU: per-point eager evaluation is host-bound)')
     args = parser.parse_args(argv)
 
     import jax
-    if not args.tpu:
-        # per-point eager sampling is host-bound, and the f64 flax param
-        # init does not AOT-compile on this TPU toolchain; --tpu opts in
+    if not args.accelerator:
+        # per-point eager sampling is host-bound; --accelerator opts in
         jax.config.update('jax_platforms', 'cpu')
     jax.config.update('jax_enable_x64', True)
 

@@ -1,4 +1,4 @@
-r"""FFTLog transforms, TPU-native.
+r"""FFTLog transforms.
 
 Computes :math:`G(y) = \int_0^\infty x\,dx\,F(x) K(xy)` for log-spaced x via
 the FFTLog algorithm (Hamilton 2000), with:
@@ -7,7 +7,7 @@ the FFTLog algorithm (Hamilton 2000), with:
   ``loggamma`` (ops/special.py), removing the reference's host
   ``pure_callback`` round-trip (cosmoprimo/fftlog.py:16-27);
 - the transform itself a batched real FFT over arbitrary leading axes
-  (nparallel kernels x any batch shape), mapping directly onto XLA's TPU FFT;
+  (nparallel kernels x any batch shape), handed to XLA's native FFT;
 - everything pytree-registered and differentiable (jit/vmap/jacfwd).
 
 API parity with the reference fftlog.py: FFTlog, HankelTransform,
@@ -32,7 +32,7 @@ def _is_traced(*arrays):
 # ----------------------------------------------------------------------------
 
 def _kernel_backend(z):
-    """numpy for host-side setup (TPU has no complex128), jnp when traced."""
+    """numpy for host-side setup on concrete grids, jnp when traced."""
     if _is_traced(z) or isinstance(z, jnp.ndarray):
         return jnp, jnp.asarray(z, dtype=jnp.complex128)
     return np, np.asarray(z, dtype=np.complex128)
@@ -206,9 +206,8 @@ class FFTlog(object):
         if np.ndim(xy) == 0:
             xy = [xy] * nk
         # Host-side numpy setup whenever the grid is concrete: the Mellin
-        # coefficients need complex128, which TPU lacks; they depend only on
-        # the (static) grid and kernels, so they are computed once on host
-        # and shipped as float64 pairs.
+        # coefficients depend only on the (static) grid and kernels, so they
+        # are computed once on host and stay out of the traced program.
         xp = jnp if _is_traced(x) else np
         x = xp.asarray(x, dtype=xp.float64)
         shared_x = x.ndim == 1
@@ -221,16 +220,14 @@ class FFTlog(object):
 
     def set_fft_engine(self, engine='auto', **engine_kwargs):
         """Select the FFT engine used by :meth:`__call__` (reference
-        fftlog.py:119-133). Native engines are ``'auto'`` (pallas on TPU
-        batches, pair-FFT otherwise), ``'pair'`` (XLA f64 pair-FFT) and
-        ``'pallas'`` (fused double-single f32 kernel). The reference names
-        ``'numpy'`` and ``'fftw'`` are accepted as aliases of ``'pair'`` and
-        ``'auto'``: both roles (host FFT / fastest native FFT) map onto the
-        XLA and Pallas paths here."""
+        fftlog.py:119-133). Native engines are ``'auto'`` (``jnp.fft`` in
+        complex128) and ``'pair'`` (float64 real-pair FFT, ops/fft.py, an
+        FFT independent of ``jnp.fft``). The reference names ``'numpy'`` and
+        ``'fftw'`` are accepted as aliases of ``'pair'`` and ``'auto'``."""
         engine = str(engine)
         engine = {'numpy': 'pair', 'fftw': 'auto'}.get(engine, engine)
-        if engine not in ('auto', 'pair', 'pallas'):
-            raise ValueError(f'unknown FFT engine {engine!r}; choose from auto/pair/pallas (or numpy/fftw aliases)')
+        if engine not in ('auto', 'pair'):
+            raise ValueError(f'unknown FFT engine {engine!r}; choose from auto/pair (or numpy/fftw aliases)')
         self.engine = engine
         self.engine_kwargs = dict(engine_kwargs)
 
@@ -281,55 +278,17 @@ class FFTlog(object):
         self.padded_prefactor = xp.stack(padded_prefactor)
         self.padded_postfactor = xp.stack(padded_postfactor)
 
-    def _use_pair_engine(self):
-        if self.engine == 'pair':
-            return True
-        if self.engine == 'auto':
-            return jax.default_backend() == 'tpu'
-        return False
-
-    def _call_pallas(self, padded_fun, prefactor, postfactor, u):
-        """Fused Pallas path (double-single f32 kernel, ops/pallas_fft.py):
-        one VMEM-resident kernel per batch tile. Supports a single kernel row
-        (nparallel == 1) with a real postfactor."""
-        from .ops.pallas_fft import fftlog_pallas
-        u = np.asarray(u) if not _is_traced(u) else u
-        fun = (padded_fun * prefactor).reshape(-1, self.padded_size)
-        # block != 8 is rejected by the Pallas TPU lowering (last-two-dims
-        # divisibility); override via FFTlog(..., engine='pallas', block=...)
-        block = int(getattr(self, 'engine_kwargs', {}).get('block', 8))
-        # split the complex Mellin coefficients on the HOST: a complex128
-        # constant inside the jit graph cannot compile on TPU (no C128)
-        if isinstance(u, np.ndarray):
-            u_re, u_im = jnp.asarray(np.real(u[0])), jnp.asarray(np.imag(u[0]))
-        else:
-            u_re, u_im = jnp.real(u[0]), jnp.imag(u[0])
-        if isinstance(postfactor, np.ndarray):
-            post = jnp.asarray(postfactor[0])
-        else:
-            post = jnp.asarray(postfactor)[0] if jnp.ndim(postfactor) > 1 else jnp.asarray(postfactor)
-        out = fftlog_pallas(fun, u_re, u_im, post, block=block)
-        return out.reshape(padded_fun.shape[:-1] + (self.padded_size,))
-
     def __call__(self, fun, extrap=0, keep_padding=False):
         """Transform ``fun`` whose last axes broadcast against
-        (nparallel, size); returns (y, transformed).
-
-        The FFT engine is chosen per backend: XLA's native complex FFT where
-        complex128 exists, the float64 real-pair FFT (ops/fft.py) on TPU.
-        """
+        (nparallel, size); returns (y, transformed)."""
         fun = jnp.asarray(fun)
         padded_fun = pad(fun, (self.padded_size_in_left, self.padded_size_in_right), axis=-1, extrap=extrap)
         prefactor = jnp.asarray(self.padded_prefactor)
         postfactor = jnp.asarray(self.padded_postfactor)
         u = np.asarray(self.padded_u) if not _is_traced(self.padded_u) else self.padded_u
-        if self.engine == 'pallas':
-            if self.nparallel != 1 or jnp.iscomplexobj(postfactor):
-                raise NotImplementedError("engine='pallas' supports a single kernel row with real postfactor")
-            out = self._call_pallas(padded_fun, prefactor, postfactor, u)
-        elif self._use_pair_engine():
+        if self.engine == 'pair':
             if jnp.iscomplexobj(postfactor):
-                raise NotImplementedError('complex postfactors (complex=True multipoles) require a backend with complex128')
+                raise NotImplementedError("complex postfactors (complex=True multipoles) need engine='auto'")
             u_re = jnp.asarray(np.real(u)) if isinstance(u, np.ndarray) else jnp.real(u)
             u_im = jnp.asarray(np.imag(u)) if isinstance(u, np.ndarray) else jnp.imag(u)
             sr, si = rfft_pair(padded_fun * prefactor)

@@ -1,4 +1,4 @@
-r"""Power-spectrum and correlation-function interpolators, TPU-native.
+r"""Power-spectrum and correlation-function interpolators.
 
 Mirrors the reference interpolator.py API (PowerSpectrumInterpolator1D/2D,
 CorrelationFunctionInterpolator1D/2D, sigma integrals at interpolator.py:
@@ -179,8 +179,8 @@ def _argsorted(x):
 
 def _static_geomspace(a, b, n):
     """Geometric grid built host-side (numpy) when the limits are concrete,
-    so FFTLog setup stays on the host even inside a jit trace (TPU has no
-    complex128; Mellin coefficients are host-precomputed for static grids)."""
+    so FFTLog setup stays on the host even inside a jit trace (Mellin
+    coefficients are host-precomputed for static grids)."""
     try:
         return np.clip(np.geomspace(float(a), float(b), n), float(a), float(b))
     except (TypeError, jax.errors.TracerArrayConversionError, jax.errors.ConcretizationTypeError):

@@ -26,7 +26,7 @@ import jax.numpy as jnp
 
 from .. import constants, utils
 from ..cosmology import (BaseEngine, BaseSection, CosmologyComputationError, CosmologyInputError,
-                         DefaultBackground, register_engine, register_section)
+                         DefaultBackground, cl_table, register_engine, register_section)
 from ..interpolator import PowerSpectrumInterpolator1D, PowerSpectrumInterpolator2D
 from ..ops import Interpolator1D, flatarray
 from .boltzmann import background_z_grid, build_task_dependency, camb_nu_degeneracies, translate_camb_params
@@ -588,7 +588,6 @@ class Harmonic(BaseSection):
         scale = self._rsigma8 ** 2
         table = {name: jnp.asarray(arr[:, i]) * scale for i, name in enumerate(names)}
         table['ell'] = np.arange(arr.shape[0])
-        from ..emulators.emulated import cl_table
         return cl_table(table)
 
     def _resolve_ellmax(self, ellmax):

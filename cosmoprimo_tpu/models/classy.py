@@ -1,7 +1,7 @@
 """CLASS-family Boltzmann engines ('class' and published variants) with the
 full seven-section surface.
 
-TPU-first import design (SURVEY.md §7 stage 11): the external native code
+Import design (SURVEY.md §7 stage 11): the external native code
 runs ON HOST once per cosmology; scalars are read directly and z-dependent
 quantities are imported as TABLES on dense grids, then served through this
 framework's splines as device arrays. Nothing external sits inside a trace.
@@ -24,7 +24,7 @@ import jax.numpy as jnp
 
 from .. import constants, utils
 from ..cosmology import (BaseEngine, BaseSection, CosmologyComputationError, CosmologyInputError,
-                         DefaultBackground, register_engine, register_section)
+                         DefaultBackground, cl_table, register_engine, register_section)
 from ..interpolator import PowerSpectrumInterpolator1D, PowerSpectrumInterpolator2D
 from ..ops import Interpolator1D, flatarray
 from .boltzmann import background_z_grid as _background_z_grid, translate_class_params
@@ -391,7 +391,6 @@ class Harmonic(BaseSection):
         cl = self._rescaled(getattr(hr, kind)(ellmax=ellmax))
         table = {name: jnp.asarray(cl[name]) for name in cl.dtype.names if name != 'ell'}
         table['ell'] = np.arange(len(cl))
-        from ..emulators.emulated import cl_table
         return cl_table(table)
 
     def _resolve_ellmax(self, ellmax):

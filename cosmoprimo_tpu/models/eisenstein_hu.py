@@ -240,7 +240,7 @@ class Fourier(BaseSection):
     def pk_interpolator(self, of='delta_m', non_linear=False, **kwargs):
         """P(k, z) interpolator for 'delta_m' / 'theta_m' (velocity spectra
         are rescaled by the growth rate). ``non_linear=True`` (or 'halofit')
-        applies the native TPU halofit transform (models/halofit.py) — the
+        applies the native halofit transform (models/halofit.py) — the
         capability the reference delegates to CLASS/CAMB internals
         (reference classy.py:15-71, camb.py:124-147)."""
         if non_linear:

@@ -1,4 +1,4 @@
-"""TPU-native halofit (Takahashi 2012, arXiv:1208.2701) non-linear matter
+"""Native halofit (Takahashi 2012, arXiv:1208.2701) non-linear matter
 power spectrum, with the Bird et al. 2012 massive-neutrino corrections as
 implemented by CAMB/CLASS.
 
@@ -6,11 +6,11 @@ The reference library has no halofit of its own — its ``non_linear``
 calculation parameter is forwarded to CLASS/CAMB Fortran/C internals
 (reference classy.py:15-71 'hmcode/halofit keys', camb.py:124-147). This
 module supplies that capability natively so *any* engine exposing a linear
-P(k, z) serves non-linear spectra on TPU, batched and differentiable.
+P(k, z) serves non-linear spectra on device, batched and differentiable.
 
-TPU-first design:
+Design:
 - sigma^2(R, z) = \\int dlnk  Delta^2_L(k, z) e^{-k^2 R^2} is evaluated for
-  the whole (R, z) grid as a single (nR, nk) @ (nk, nz) matmul (MXU), with
+  the whole (R, z) grid as a single (nR, nk) @ (nk, nz) matmul, with
   static trapezoid weights folded into the Gaussian window matrix;
 - the non-linear scale sigma(R_sigma) = 1 is found per z by a fixed-depth
   (unrolled) Newton iteration on the natural cubic spline of
@@ -33,7 +33,7 @@ def sigma_gauss2(k, pk_kz, R):
     """Gaussian-filtered variance sigma^2(R, z) = int dlnk Delta^2_L e^{-k^2R^2}.
 
     ``k``: (nk,), ``pk_kz``: (nk, nz) linear P(k, z), ``R``: (nR,).
-    Returns (nR, nz). One matmul: MXU-friendly and differentiable.
+    Returns (nR, nz). One matmul, differentiable.
     """
     k = jnp.asarray(k)
     pk_kz = jnp.asarray(pk_kz)
@@ -132,9 +132,9 @@ def halofit(k, pk_kz, Omega_mz, Omega_dez, wz, fnu=0.0, Omega_m0=None,
 
     # Z-MAJOR elementwise block (nz, nk), k on the minor (lane) axis: under
     # the batched (vmapped) pipelines every per-cosmology table gains a
-    # leading batch axis and the TPU pads the two minor dims to (8, 128)
-    # lanes — with the k-major (nk, nz) ordering an nz = 1 table wastes up
-    # to 128x of every elementwise op below; k-minor keeps the lanes full.
+    # leading batch axis; with the k-major (nk, nz) ordering an nz = 1
+    # table puts a size-1 axis minor, and k-minor keeps the long k axis
+    # contiguous for every elementwise op below.
     # Per-z fitted parameters become columns; output transposes back (the
     # pipeline consumer transposes to (nz, nk) for the FFTLog anyway, so
     # XLA fuses the round trip away).

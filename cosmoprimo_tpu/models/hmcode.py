@@ -1,4 +1,4 @@
-"""TPU-native HMcode-2020 (Mead et al. 2021, arXiv:2009.01858) non-linear
+"""Native HMcode-2020 (Mead et al. 2021, arXiv:2009.01858) non-linear
 matter power spectrum — the ``non_linear='mead'/'hmcode'`` capability the
 reference forwards to CLASS/CAMB internals (reference classy.py:44-48,
 camb.py:124-147), here as a batched, differentiable halo-model transform
@@ -7,7 +7,7 @@ over any engine's linear P(k, z).
 Physics (paper sections 2-3, fitted parameters from its Table 2):
 
 - sigma^2(R, z) of the cold (cb) field with a tophat window, evaluated for
-  the whole (R, z) grid as one (nR, nk) @ (nk, nz) matmul (MXU);
+  the whole (R, z) grid as one (nR, nk) @ (nk, nz) matmul;
 - Sheth & Tormen (1999) mass function, integrated over a static ln R grid
   (the mass variable is eliminated analytically: nu(R) = delta_c/sigma(R)
   and dnu/dlnR come from the same spline, so no per-mass root finds);
@@ -87,7 +87,7 @@ def _sigma_tophat2_t(k, pk_t, R):
 
     One (nz, nk) @ (nk, nR) matmul; under the vmapped pipelines the batch
     axis merges into the M dimension ((B nz, nk) @ (nk, nR)), a far better
-    MXU shape than the per-cosmology (nR, nk) @ (nk, 1) of the k-major
+    matmul shape than the per-cosmology (nR, nk) @ (nk, 1) of the k-major
     form.
     """
     w = trapezoid_weights(jnp.log(k))
@@ -139,7 +139,7 @@ def _dewiggle_t(k, pk_t, h, omega_m, omega_b, theta_cmb, ns, smooth_sigma=0.25):
 
     The smoothing becomes (nz, nk) @ (nk, nk) with the static Gaussian
     kernel as the shared right operand — under vmap the batch axis merges
-    into M, one big MXU matmul instead of B matvecs.
+    into M, one big matmul instead of B matvecs.
     """
     lnk = jnp.log(k)
     pk_eh = eh_nowiggle_shape(k, h, omega_m, omega_b, theta_cmb) ** 2 * k ** ns
@@ -239,7 +239,7 @@ def mead_growth_ratios(z, Omega_m0, Omega_k0=0.0, w0=-1.0, wa=0.0,
     is a sub-permille effect on P(k), far below the model's ~2.5%
     calibration accuracy.
 
-    TPU-first numerics: the substitution u = D/a (u == 1 identically in
+    Numerics: the substitution u = D/a (u == 1 identically in
     EdS) turns 9 e-folds of growth into a slowly-varying factor, solved by
     the log-depth Magnus parallel-prefix propagator
     (ops/odeint.linear_ode2_magnus) instead of a sequential scan; G(a) =
@@ -337,10 +337,9 @@ def hmcode2020(k, pk_cb, pk_m, Omega_mz, fnu, omega_m, omega_b, h, theta_cmb, ns
 
     # Z-MAJOR working layout (z leading, k/R on the minor lane axis): under
     # the batched pipelines every per-cosmology table gains a leading batch
-    # axis and the TPU pads the two minor dims to (8, 128) lanes — k-major
-    # (nk, nz) tables at nz=1 waste up to 128x of every elementwise op, and
+    # axis; k-major (nk, nz) tables at nz=1 put a size-1 axis minor, and
     # the matmuls against static kernels become per-cosmology matvecs
-    # instead of batch-merged MXU contractions. Only the small (nR, nz)
+    # instead of batch-merged contractions. Only the small (nR, nz)
     # spline blocks stay k-major (the spline helpers solve along axis 0).
     pt_cb = pk_cb.T                                       # (nz, nk)
     pt_m = pk_m.T
@@ -420,12 +419,11 @@ def hmcode2020(k, pk_cb, pk_m, Omega_mz, fnu, omega_m, omega_b, h, theta_cmb, ns
     nk1h = min(nk_one_halo, nk)
     isub = np.unique(np.round(np.linspace(0, nk - 1, nk1h)).astype(int))
     ksub = k[isub]
-    # Profile-tensor layout (TPU tiling): under the batched (vmapped)
-    # pipeline every per-cosmology array gains a leading batch axis, and
-    # the TPU pads the two MINOR dims to (8, 128) lanes — with the
-    # z-minor (nk1h, nR, nz) ordering an nz = 1 table wastes up to 128x
-    # of the dominant transcendental tensor. Order it (nz, nk1h, nR)
-    # instead: nR = 64 minor (2x pad), nk1h = 32 second-minor (exact).
+    # Profile-tensor layout: under the batched (vmapped) pipeline every
+    # per-cosmology array gains a leading batch axis; the z-minor
+    # (nk1h, nR, nz) ordering would put a size-1 axis minor in the
+    # dominant transcendental tensor. Order it (nz, nk1h, nR) instead:
+    # nR = 64 minor, nk1h = 32 second-minor.
     # bloated profile argument: y = (nu^eta k) rv / c
     rvc_t = (nu ** eta[None, :] * rv / conc).T            # (nz, nR)
     krs = ksub[None, :, None] * rvc_t[:, None, :]         # (nz, nk1h, nR)

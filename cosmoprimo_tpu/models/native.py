@@ -1,4 +1,4 @@
-"""Native TPU Boltzmann engine: thermodynamics (and, progressively, linear
+"""Native Boltzmann engine: thermodynamics (and, progressively, linear
 perturbations) computed on device with no external C code.
 
 The reference has no counterpart: it obtains z_star/z_drag/rs_drag and the
@@ -41,7 +41,7 @@ import jax.numpy as jnp
 
 from .. import utils
 from ..boltzmann import compute_thermodynamics
-from ..cosmology import BaseEngine, BaseSection, CosmologyInputError, register_engine, register_section
+from ..cosmology import BaseEngine, BaseSection, CosmologyInputError, cl_table, register_engine, register_section
 from ..interpolator import PowerSpectrumInterpolator2D
 from .eisenstein_hu import Primordial  # noqa: F401  (standard power-law primordial)
 from ..cosmology import DefaultBackground as Background  # noqa: F401
@@ -409,7 +409,6 @@ class Harmonic(BaseSection):
         return ellmax
 
     def _cl_dict(self, table, names, lmax):
-        from ..emulators.emulated import cl_table
         scale = jnp.asarray(self._rsigma8) ** 2
         out = {name: jnp.asarray(table[name])[:lmax + 1] * scale for name in names}
         out['ell'] = np.arange(lmax + 1)

@@ -1,4 +1,4 @@
-"""Numerical kernels for the TPU build: splines, quadrature, ODE integration,
+"""Numerical kernels: splines, quadrature, ODE integration,
 root finding, FFTLog and special functions. All functions are pure jnp and
 traceable (jit/vmap/grad)."""
 

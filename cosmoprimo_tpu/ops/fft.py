@@ -1,8 +1,7 @@
-"""Double-precision FFT on TPU via real-pair arithmetic.
+"""Double-precision FFT via real-pair arithmetic.
 
-TPU has no complex128 type, but float64 arithmetic works (software
-emulated). This module implements the radix-2 FFT over (real, imag) f64
-array pairs so FFTLog retains full double precision on TPU:
+This module implements the radix-2 FFT over (real, imag) f64 array pairs,
+in plain float64 arithmetic and independent of ``jnp.fft``:
 
 - bit-reversal permutation indices and per-stage twiddle factors are static
   (precomputed with numpy at trace time — the transform size is static);
@@ -10,8 +9,8 @@ array pairs so FFTLog retains full double precision on TPU:
   axis, batched over arbitrary leading axes;
 - ``rfft_pair`` / ``irfft_pair`` mirror numpy's rfft/irfft semantics.
 
-On backends with native complex support, prefer ``jnp.fft`` — XLA's FFT is
-faster; ``fftlog`` selects per backend.
+FFTLog uses it only when ``engine='pair'`` is chosen explicitly; the
+default ``'auto'`` engine is ``jnp.fft`` in complex128.
 """
 
 import functools

@@ -76,7 +76,7 @@ def linear_ode2_magnus(coeffs_fun, y0, t):
 
     ``coeffs_fun(t) -> (s, f)`` must accept array arguments.
 
-    TPU-first design: as a first-order linear system Y' = A(t) Y with
+    Design: as a first-order linear system Y' = A(t) Y with
     A = [[0, 1], [s, f]], the exact propagator over each grid interval is a
     2x2 matrix; a 4th-order two-point Gauss-Legendre Magnus expansion gives
     Omega_i = h/2 (A1 + A2) + sqrt(3) h^2 / 12 [A2, A1] and
@@ -93,11 +93,9 @@ def linear_ode2_magnus(coeffs_fun, y0, t):
     s1, f1 = coeffs_fun(mid - off)
     s2, f2 = coeffs_fun(mid + off)
 
-    # COMPONENT form throughout (TPU lane tiling): a (n-1, 2, 2) matrix
-    # stack puts the 2x2 on the two minor dims, which the TPU pads to
-    # (8, 128) — up to 2048x lane waste once the batched pipelines vmap a
-    # leading cosmology axis — and turns the prefix products into MXU
-    # dots of shape 2x2. Four (n-1,) component arrays keep the interval
+    # COMPONENT form throughout: a (n-1, 2, 2) matrix stack puts the 2x2
+    # on the two minor dims, and turns the prefix products into tiny dots
+    # of shape 2x2. Four (n-1,) component arrays keep the interval
     # axis (and under vmap the batch axis) on the lanes, and the companion
     # structure A = [[0, 1], [s, f]] constant-folds at trace time.
     # Omega = h/2 (A1 + A2) + sqrt(3) h^2 / 12 [A2, A1], componentwise:
@@ -160,8 +158,8 @@ def linear_ode2_rk4_prefix(coeffs_fun, y0, t):
     s_mid, f_mid = coeffs_fun((t[:-1] + t[1:]) / 2.0)
 
     # COMPONENT form (see linear_ode2_magnus): 2x2s as 4-tuples of (n-1,)
-    # arrays keep the interval/batch axes on the TPU lanes instead of
-    # padding the (2, 2) minor dims to (8, 128), and the companion zeros/
+    # arrays keep the interval/batch axes minor instead of the (2, 2)
+    # dims, and the companion zeros/
     # ones of A = [[0, 1], [s, f]] constant-fold out of the K products.
     def mmul(x, y):
         x00, x01, x10, x11 = x

@@ -5,8 +5,7 @@ The reference implementation routes complex ``loggamma``/``gamma`` through
 round-trip per call. Here the Lanczos approximation is evaluated directly —
 in ``jnp`` when tracing (so FFTLog Mellin coefficients stay differentiable
 on CPU backends), or in ``numpy`` complex128 on the host for static setup
-(TPU has no complex128 type, so FFTLog precomputes coefficients host-side
-and ships them as float64 pairs).
+(FFTLog precomputes coefficients host-side for static grids).
 """
 
 import jax
@@ -180,7 +179,7 @@ del _xs_fit, _si_fit, _ci_fit, _u_fit, _xl_fit, _si_l, _ci_l, _f_fit, _g_fit
 
 def _clenshaw(t, coeffs):
     """Chebyshev evaluation, fixed unrolled Clenshaw (pure FLOPs: no
-    gathers — TPU-friendly)."""
+    gathers)."""
     b1 = jnp.zeros_like(t)
     b2 = jnp.zeros_like(t)
     t2 = 2.0 * t

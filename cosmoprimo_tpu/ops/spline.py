@@ -1,7 +1,7 @@
 """Vmappable, differentiable cubic splines built on parallel scans.
 
 This replaces the reference's dependency on ``interpax`` / scipy splines
-(cosmoprimo/jax.py:85-287) with a TPU-native implementation:
+(cosmoprimo/jax.py:85-287) with a JAX-native implementation:
 
 - the tridiagonal system of a natural cubic spline is solved with
   ``jax.lax.associative_scan`` (O(log n) depth instead of a serial Thomas

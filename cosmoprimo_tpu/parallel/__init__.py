@@ -1,7 +1,7 @@
-"""Parallel execution over TPU device meshes.
+"""Parallel execution over device meshes.
 
 The reference's parallelism surface is (a) batched transforms and (b)
-MPI-rank fan-out of emulator sampling (SURVEY.md §2.11). The TPU-native
+MPI-rank fan-out of emulator sampling (SURVEY.md §2.11). The
 mapping implemented here:
 
 - **data parallel**: the cosmology batch axis is sharded over the mesh's

@@ -59,8 +59,8 @@ def make_pk_to_xi_pipeline(nk=1024, kmin=1e-5, kmax=1e2, engine='eisenstein_hu',
 
     vmap ``fn`` for the batched BASELINE workload.
     """
-    # host-built grid: exact endpoints (on-device geomspace under f64
-    # emulation can land one ULP outside the interpolator bounds -> NaN)
+    # host-built grid: exact endpoints (an on-device geomspace can land
+    # one ULP outside the interpolator bounds -> NaN)
     k_np = np.geomspace(kmin, kmax, nk)
     k = jnp.asarray(k_np)
     p2c = PowerToCorrelation(k_np, engine=fft_engine)
@@ -111,8 +111,7 @@ def make_pk_to_xi_pipeline_batched(nk=1024, kmin=1e-5, kmax=1e2, engine='eisenst
     """Batched variant: ``fn(omega_cdm[B], omega_b[B], h[B], n_s[B],
     logA[B])`` evaluates P(k) (optionally pushed through the halofit or
     HMcode non-linear transform) per cosmology under vmap, then runs ONE
-    batched FFTLog over all (B, nz) rows — so the fused Pallas engine
-    applies to the whole batch in a single kernel launch.
+    batched FFTLog over all (B, nz) rows.
     """
     k_np = np.geomspace(kmin, kmax, nk)
     k = jnp.asarray(k_np)
@@ -120,9 +119,8 @@ def make_pk_to_xi_pipeline_batched(nk=1024, kmin=1e-5, kmax=1e2, engine='eisenst
     zq = jnp.array([0.5, 1.0, 2.0])
     # sigma8 via static-weight Simpson on the SAME k-grid the transform
     # uses (exactly as make_pk_to_xi_pipeline): sigma8_z's generic path
-    # re-evaluates the spline on its own 1024-point grid, and those
-    # gather-heavy evals cost ~3 us/cosmology on TPU — the static-weight
-    # reduction is one fused multiply-sum
+    # re-evaluates the spline on its own 1024-point grid with gather-heavy
+    # evals; the static-weight reduction is one fused multiply-sum
     from .interpolator import kernel_tophat2
     from .ops import simpson
     _w8 = jnp.asarray(k_np ** 3 * np.asarray(kernel_tophat2(jnp.asarray(8.0 * k_np))))

@@ -190,6 +190,24 @@ def setup_logging(level='info'):
                         datefmt='%m-%d %H:%M', stream=sys.stdout, force=True)
 
 
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def init_compilation_cache():
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    When ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it and nothing is
+    set here. Otherwise the cache goes to ``<repo>/.jax_cache``: a fixed
+    path, because the path is part of the cache key."""
+    path = os.environ.get('JAX_COMPILATION_CACHE_DIR')
+    if path:
+        return path
+    path = os.path.join(_REPO_ROOT, '.jax_cache')
+    jax.config.update('jax_compilation_cache_dir', path)
+    jax.config.update('jax_persistent_cache_min_compile_time_secs', 1.0)
+    return path
+
+
 def profile_trace(dirname='/tmp/jax-trace'):
     """Context manager writing a jax.profiler trace viewable in TensorBoard
     or Perfetto (aux observability; the reference has no tracer — SURVEY §5)."""

@@ -1,16 +1,17 @@
 """cosmoprimo_tpu quickstart — the executable counterpart of the reference
-library's nb/examples.ipynb, re-flavoured for this TPU-native build: every
-step below also jits, vmaps and differentiates.
+library's nb/examples.ipynb: every step below also jits, vmaps and
+differentiates.
 
-Run anywhere (defaults to CPU so it works without a TPU attached):
+Run anywhere (defaults to CPU; ``--accelerator`` runs on the default
+accelerator, e.g. a GPU):
 
-    python examples/quickstart.py [--plot outdir]
+    python examples/quickstart.py [--plot outdir] [--accelerator]
 
 Covered: Cosmology construction/clone/solve, fiducials, engines & sections,
 save/load, background distances, P(k) interpolators and sigma8, FFTLog
 pk <-> xi, BAO filters, native non-linear spectra (halofit, HMcode-2020,
 mead2020_feedback), and the batched + differentiable pipelines that are the
-point of the TPU re-design.
+point of the design.
 """
 
 import argparse
@@ -28,12 +29,12 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--plot', default=None, metavar='OUTDIR',
                         help='write PNG figures to this directory (requires matplotlib)')
-    parser.add_argument('--tpu', action='store_true',
+    parser.add_argument('--accelerator', action='store_true',
                         help='run on the default accelerator instead of forcing CPU')
     args = parser.parse_args(argv)
 
     import jax
-    if not args.tpu:
+    if not args.accelerator:
         jax.config.update('jax_platforms', 'cpu')
     jax.config.update('jax_enable_x64', True)
     import jax.numpy as jnp
@@ -161,7 +162,7 @@ def main(argv=None):
     print('solved h(theta_MC_100 = 1.04092) =', float(np.asarray(solved['h'])))
     assert abs(float(np.asarray(solved['theta_MC_100'])) - 1.04092) < 1e-6
 
-    # ---- The TPU point: jit + vmap + grad end to end ----------------------
+    # ---- The point: jit + vmap + grad end to end ---------------------------
     from cosmoprimo_tpu.pipelines import make_pk_to_xi_pipeline_batched
 
     fn, kgrid, sgrid = make_pk_to_xi_pipeline_batched(nk=512)

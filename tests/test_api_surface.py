@@ -56,8 +56,8 @@ def test_set_fft_engine():
     assert fft.engine == 'pair'
     fft.set_fft_engine('fftw')  # reference alias of the fastest native path
     assert fft.engine == 'auto'
-    fft.set_fft_engine('pallas', block=8)
-    assert fft.engine == 'pallas' and fft.engine_kwargs == {'block': 8}
+    with pytest.raises(ValueError):
+        fft.set_fft_engine('pallas')
     with pytest.raises(ValueError):
         fft.set_fft_engine('cufft')
 

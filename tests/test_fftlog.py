@@ -123,36 +123,23 @@ def test_pad():
     np.testing.assert_allclose(padded[0], [0, 1, 2, 4, 8, 0, 0], rtol=1e-12)
 
 
-def test_pallas_engine_math():
-    """The double-single Pallas FFTLog path matches the f64 reference.
-
-    Note: under force_tpu_interpret_mode, f32 is evaluated with excess
-    precision, which defeats error-free transforms — accuracy here is
-    limited to ~1e-7; on real TPU hardware the kernel reaches ~1e-14
-    (verified in the bench harness)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from cosmoprimo_tpu.fftlog import TophatVariance
-    k = np.geomspace(1e-5, 1e2, 1000)
-    pkv = pk_eh_like(k)
-    s_ref, var_ref = TophatVariance(k)(pkv)
-    tp = TophatVariance(k, engine='pallas')
-    with pltpu.force_tpu_interpret_mode():
-        s_p, var_p = tp(pkv)
-    np.testing.assert_allclose(np.asarray(s_p), np.asarray(s_ref), rtol=1e-12)
-    err = np.abs(np.asarray(var_p) - np.asarray(var_ref)).max() / np.abs(np.asarray(var_ref)).max()
-    assert err < 1e-5
-
-
-def test_pallas_reference_function():
-    """fftlog_pair_reference (the pallas kernel's exact contract) matches
-    numpy to f64 round-off."""
-    from cosmoprimo_tpu.ops.pallas_fft import fftlog_pair_reference
-    rng = np.random.default_rng(0)
-    B, n = 8, 512
-    f = rng.normal(size=(B, n))
-    uh = rng.normal(size=n // 2 + 1) + 1j * rng.normal(size=n // 2 + 1)
-    post = rng.normal(size=n)
-    truth = np.fft.irfft((np.fft.rfft(f, axis=-1) * uh).conj(), n=n, axis=-1) * post
-    got = np.asarray(fftlog_pair_reference(jnp.asarray(f), jnp.asarray(uh.real), jnp.asarray(uh.imag),
-                                           jnp.asarray(post)))
-    np.testing.assert_allclose(got, truth, rtol=1e-10, atol=1e-12)
+@pytest.mark.parametrize('transform, batch', [
+    (PowerToCorrelation, (6,)),
+    (PowerToCorrelation, (4, 3)),
+    (TophatVariance, (6,)),
+    (TophatVariance, (4, 3)),
+])
+def test_auto_engine_matches_pair(transform, batch):
+    """'auto' (jnp.fft in complex128) and 'pair' (the real-pair FFT of
+    ops/fft.py, independent of jnp.fft) agree to float64 round-off on
+    (B,) and (B, nz) batches of spectra."""
+    k = np.geomspace(1e-5, 1e2, 1024)
+    amp = np.linspace(0.8, 1.2, int(np.prod(batch))).reshape(batch + (1,))
+    pk = amp * pk_eh_like(k)
+    y_auto, out_auto = transform(k, engine='auto')(pk)
+    y_pair, out_pair = transform(k, engine='pair')(pk)
+    out_auto, out_pair = np.asarray(out_auto), np.asarray(out_pair)
+    assert out_auto.shape == batch + (k.size,)
+    np.testing.assert_array_equal(np.asarray(y_auto), np.asarray(y_pair))
+    scale = np.abs(out_auto).max(axis=-1, keepdims=True)
+    assert (np.abs(out_auto - out_pair) / scale).max() <= 1e-12

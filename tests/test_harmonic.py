@@ -27,6 +27,8 @@ spectra, reproduces the archived lensed spectra to <~0.3%
 """
 
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -160,7 +162,7 @@ def test_default_lmax2500_spot_check():
     Bars are the scripts/dev_cls_check.py 2500 measurements (2026-08,
     post HeI-ODE + split-TCA-trigger + decoupled k grids) x ~1.5 margin:
     TT <= 1.2% at l in [1000, 2000] and -1.7% at l = 2500 (remaining
-    damping-tail physics, tracked in doc/roadmap.md); EE <= 1.1% at the
+    damping-tail physics, tracked in ROADMAP.md); EE <= 1.1% at the
     sampled l >= 1000; lensing potential <= 1.2% through the whole Limber
     regime l in [250, 2500] (pp edge +1.2% at l = 2500) incl. the blend window
     [250, 420] (a blend discontinuity would break the 2.5% band there)."""
@@ -237,3 +239,19 @@ def test_high_lmax_spot_check():
     # EE -3.3%/-2.0%; bars allow the lmax-3500 config to differ ~1.5x
     np.testing.assert_allclose(rel_tt, [-0.029, -0.052], atol=3.5e-2)
     np.testing.assert_allclose(rel_ee, 0.0, atol=6e-2)
+
+
+def test_native_cls_import_no_flax():
+    """Native Cls need no flax: the MLP emulator (emulators/mlp.py) is the
+    only user of that optional dependency."""
+    code = ('import sys\n'
+            'from cosmoprimo_tpu import Cosmology\n'
+            "cl = Cosmology(engine='native').get_harmonic().lensed_cl(ellmax=30)\n"
+            "assert cl['tt'].shape == (31,)\n"
+            "print('flax' in sys.modules)\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS='cpu', PYTHONPATH=repo)
+    out = subprocess.run([sys.executable, '-c', code], cwd=repo, env=env, capture_output=True,
+                         text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == 'False'

@@ -1,10 +1,13 @@
 """Utility tests: constrained least squares vs hand solutions (reference
 parity: tests/test_utils.py:7-72), distance->redshift inversion, FFTlog
-inversion, serialization helpers."""
+inversion, serialization helpers, compilation-cache location."""
+
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from cosmoprimo_tpu.utils import DistanceToRedshift, LeastSquareSolver, read_state, write_state
 
@@ -91,3 +94,24 @@ def test_state_io(tmp_path):
         loaded = read_state(path)
         np.testing.assert_allclose(np.asarray(loaded['a']), state['a'])
         assert loaded['e'] == 'text'
+
+
+@pytest.mark.parametrize('env_dir', [True, False])
+def test_init_compilation_cache(tmp_path, monkeypatch, env_dir):
+    """JAX_COMPILATION_CACHE_DIR, when set, is used and nothing is set in
+    code; otherwise the cache goes to <repo>/.jax_cache."""
+    from cosmoprimo_tpu import utils
+    before = (jax.config.jax_compilation_cache_dir, jax.config.jax_persistent_cache_min_compile_time_secs)
+    monkeypatch.setattr(jax.config, 'update', lambda name, value: updates.append((name, value)))
+    updates = []
+    if env_dir:
+        monkeypatch.setenv('JAX_COMPILATION_CACHE_DIR', str(tmp_path))
+        assert utils.init_compilation_cache() == str(tmp_path)
+        assert updates == []
+    else:
+        monkeypatch.delenv('JAX_COMPILATION_CACHE_DIR', raising=False)
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        expected = os.path.join(repo, '.jax_cache')
+        assert utils.init_compilation_cache() == expected
+        assert ('jax_compilation_cache_dir', expected) in updates
+    assert (jax.config.jax_compilation_cache_dir, jax.config.jax_persistent_cache_min_compile_time_secs) == before
